@@ -3,8 +3,8 @@
 // First-party replacement for the role dwave-neal's C++ core plays in the
 // reference (SURVEY.md §2a): Metropolis SA over a dense QUBO with
 // num_reads restarts × num_sweeps sweeps on a geometric beta ramp.  Used as
-// the CPU fallback / cross-check backend ("SA-NATIVE" solver); the TPU path
-// is the Pallas kernel in qbmx/samplers/sa_pallas.py.
+// the CPU fallback / cross-check backend ("SA-NATIVE" solver); the GPU path
+// is the Pallas kernel in qbmx/samplers/anneal_kernel.py.
 //
 // Implementation notes:
 //   * Incremental local fields: field[j] = h[j] + Σ_i J[ij] s_i maintained
@@ -192,9 +192,8 @@ void qbmx_sa_sample_batch(const float* Q, int B, int n, int num_reads, int num_s
 
 // per-problem seed variant: problem b's chains depend on seeds[b] alone, so
 // a caller holding per-problem PRNG keys gets true per-problem stream
-// reproducibility (VERDICT r4 Weak #4 — unavailable on the packed TPU
-// kernel, per-GROUP only on the lane kernel; exact here because chains
-// never share draws across problems)
+// reproducibility (exact here because chains never
+// share draws across problems)
 void qbmx_sa_sample_batch_seeds(const float* Q, int B, int n, int num_reads,
                                 int num_sweeps, const uint64_t* seeds,
                                 float* out) {

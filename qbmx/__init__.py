@@ -1,11 +1,11 @@
-"""qbmx — TPU-native Quantum Boltzmann Machine image classification.
+"""qbmx — accelerator-native Quantum Boltzmann Machine image classification.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 QBM-Image-Classification codebase (see SURVEY.md): discriminative RBMs,
 flat discriminative QBMs and convolutional-deep QBMs trained with
 clamped/unclamped two-phase Boltzmann learning over QUBO samples, with the
 D-Wave annealer / dwave-neal simulated annealing replaced by on-device
-samplers (batched simulated annealing in pure JAX and as a Pallas TPU
+samplers (batched simulated annealing in pure JAX and as a Pallas GPU
 kernel, block Gibbs, and an exact-enumeration oracle).
 
 Layout:

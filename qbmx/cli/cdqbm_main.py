@@ -9,7 +9,6 @@ import os
 import random
 
 import numpy as np
-from sklearn.metrics import roc_auc_score
 
 from qbmx.cli._common import (load_dataset, param_string, qpu_sampler_kwargs,
                               str2bool)
@@ -137,15 +136,10 @@ def main(
 
     acc, f1, precision, recall, _ = metrics.get_metrics(test_y, predictions, class_names)
     if num_classes == 2:
-        # binary AUC from the positive-class score, regardless of label
-        # encoding (label_binarize yields (n,1) for 2 classes and breaks
-        # multi_class='ovr')
-        auc = roc_auc_score(test_y, probs_all[:, 1])
+        # binary AUC from the positive-class score
+        auc = metrics.binary_auc(test_y, probs_all[:, 1])
     else:
-        from sklearn.preprocessing import label_binarize
-
-        Y_true = label_binarize(test_y, classes=list(range(num_classes)))
-        auc = roc_auc_score(Y_true, probs_all, average="macro", multi_class="ovr")
+        auc = metrics.ovr_auc(test_y, probs_all)
 
     if save:
         metrics.save_result(

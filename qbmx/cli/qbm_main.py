@@ -203,7 +203,7 @@ def build_parser():
                    help="Number of samples (annealing reads) per QUBO")
     p.add_argument("--anneal", type=int, default=1000, help="SA sweeps per read")
     p.add_argument("--solver", type=str, default="SA",
-                   help="Solver: 'SA', 'SA-JAX', 'SA-PALLAS', 'SA-NATIVE', "
+                   help="Solver: 'SA', 'SA-JAX', 'SA-NATIVE', "
                         "'BMS', 'PT', 'EXACT'")
     p.add_argument("--data_set", type=str, default="pneumoniamnist",
                    help="'mnist', 'breastmnist', 'pneumoniamnist', 'fashionmnist', 'synthetic'")

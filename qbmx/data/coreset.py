@@ -1,4 +1,4 @@
-"""Coreset selection: k-center-greedy subsampling, TPU-native.
+"""Coreset selection: k-center-greedy subsampling, in JAX.
 
 Capability parity with the reference ``src/coreset.py`` (torch-based
 ``k_center_greedy``, ``:28-106``; ``downsample_kcenter_with_light_model``,

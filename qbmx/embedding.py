@@ -34,7 +34,7 @@ delegated to minorminer/pymetis (VERDICT r4 Missing #1):
 
 Everything here is host-side Python/numpy by design: embedding is a
 once-per-run graph computation on the way to EXTERNAL annealer hardware,
-not TPU compute (SURVEY §2a: "keep the interface seam").
+not accelerator compute (SURVEY §2a: "keep the interface seam").
 """
 
 from __future__ import annotations

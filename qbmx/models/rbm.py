@@ -1,4 +1,4 @@
-"""Discriminative RBM, TPU-native.
+"""Discriminative RBM, in JAX.
 
 Capability parity with the reference ``ClassificationRBM``
 (``src/ClassificationRBM.py``): a Larochelle-style discriminative RBM over

@@ -1,9 +1,9 @@
-"""Multi-chip training: shard_map over an ICI device mesh.
+"""Multi-device training: shard_map over a device mesh.
 
 The reference's only parallel axes are SA-chain fan-out (a 10-worker process
 pool re-sampling the same QUBO, ``src/model/faster_dqbm.py:578-596``) and
 replicated-problem chip partitioning on the QPU (``src/embedding.py``).
-The TPU-native mapping (SURVEY.md §2d):
+The device mapping (SURVEY.md §2d):
 
   * **dp** — data parallelism: the example batch is sharded across chips;
     each chip builds QUBOs and anneals chains for its shard only.
@@ -51,7 +51,7 @@ def make_dqbm_sharded_step(model: "dqbm_mod.DiscQBM", mesh: Mesh):
 
     Signature matches ``DiscQBM._step``: (params, x, y, mask, lr, key) →
     (params, nll, err).  Batch dims are sharded over 'dp'; each device
-    anneals ``sample_count / chains`` reads; moment sums ride the ICI via
+    anneals ``sample_count / chains`` reads; moment sums ride the interconnect via
     a single psum over ('dp', 'chains').
 
     Deviation from the single-device step: the restricted-mode analytic
@@ -80,11 +80,10 @@ def make_dqbm_sharded_step(model: "dqbm_mod.DiscQBM", mesh: Mesh):
         # structured shared-coupling call, exactly like the single-device
         # step (dqbm.py _build_step): couplings from the params, per-shard
         # examples as linear terms, both phases fused as TWO groups — so
-        # the lane kernel survives into the multi-chip path (VERDICT r3
-        # #1: the old dense materialization forfeited its measured 2.3–5×
-        # and made the epoch-scan decision probe a different route than
-        # the step took).  Reference role: replicated problems per anneal,
-        # ``src/embedding.py:193-223``.
+        # the anneal kernel serves the multi-device path too (a dense
+        # materialization would make the epoch-scan decision probe a
+        # different route than the step took).  Reference role: replicated
+        # problems per anneal, ``src/embedding.py:193-223``.
         H = params.b_h.shape[0]
         Qu_sh = dqbm_mod.unclamped_qubo_shared(params, beta_eff)
         hu = dqbm_mod.unclamped_fields(params, x, beta_eff)
@@ -158,8 +157,8 @@ def make_cdqbm_sharded_step(model: "cdqbm_mod.CDQBM", mesh: Mesh):
         )
         # structured shared-coupling call, like cdqbm.py's _step_fn: the
         # (at the 717-var CDQBM shape) ~2 MB/example of redundant dense J
-        # never materializes, and the lane kernel's measured 2.3–5× rides
-        # into the multi-chip path (VERDICT r3 #1+#2)
+        # never materializes, and the anneal kernel serves the
+        # multi-device path too
         nh, nt = geo.n_hidden, geo.n_total
         Qc_sh = model.clamped_qubo_shared(params)  # (nh, nh)
         Qu_sh = model.unclamped_qubo_shared(params)  # (nt, nt)

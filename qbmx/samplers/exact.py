@@ -2,7 +2,7 @@
 
 The reference has no tests; its de-facto oracle is dwave-neal itself.  Here
 the oracle is exact enumeration of all 2^n states for n ≤ ~20, which every
-approximate sampler (SA, Gibbs, Pallas SA) is validated against
+approximate sampler (SA, Gibbs, the anneal kernel) is validated against
 (SURVEY.md §4 "implication for the rebuild").
 
 ``solve_linear_qubo`` replicates the reference's analytic shortcut for

@@ -1,6 +1,6 @@
 """Heat-bath (Gibbs) samplers for QUBOs.
 
-TPU-native replacement for the reference's local ``BoltzmannSampler``
+JAX replacement for the reference's local ``BoltzmannSampler``
 ("BMS" solver, ``src/model/faster_dqbm.py:622-653``): chains are warmed up
 with a geometric inverse-temperature ramp ending at the target beta (the
 reference "reach equilibrium i.e. anneal with temperature schedule",
@@ -26,7 +26,7 @@ def _heat_bath_sweep(s, u, beta, h, J):
     Acceptance uses the threshold form: ``u < σ(-beta*field)`` is exactly
     ``field < (log(1-u) - log(u))/beta`` for u ∈ [0,1) and beta > 0, so the
     thresholds are precomputed ONCE per sweep and each variable step costs
-    one compare instead of sigmoid+compare.  The Pallas kernel uses the
+    one compare instead of sigmoid+compare.  The anneal kernel uses the
     SAME formulation (the CI debug tests lock the two bit-for-bit)."""
     n = h.shape[0]
     thresh = (jnp.log(1.0 - u) - jnp.log(u)) / beta  # (n, R)
@@ -42,12 +42,10 @@ def _pair_heat_bath_sweep(s, u, beta, h, J):
     """One sequential PAIR-Gibbs sweep: consecutive variable pairs
     (0,1),(2,3),… are jointly resampled from their exact 4-state
     conditional (a trailing odd variable gets a single heat-bath draw).
-    Halves the sequential depth per sweep — the packed kernel's measured
-    floor is its per-sub-step chain (PERFORMANCE.md §1), so this is the
-    VERDICT r2 #5 "two-variable joint updates" lead.  Preserves the
+    Halves the sequential depth per sweep.  Preserves the
     Boltzmann distribution (sequential-scan Gibbs on pair blocks).
 
-    Uniform consumption: pair (i, i+1) draws from ``u[i]``; the Pallas
+    Uniform consumption: pair (i, i+1) draws from ``u[i]``; the anneal
     kernel consumes identically (CI debug tests lock the two).
     """
     n = h.shape[0]
@@ -95,20 +93,12 @@ def _quad_heat_bath_sweep(s, u, beta, h, J):
     (0..3),(4..7),… are jointly resampled from their exact 16-state
     conditional; a remainder of 2–3 variables gets one pair draw (and a
     trailing odd variable a single heat-bath draw).  Quarter the
-    sequential depth per sweep of single-variable sweeps — the packed
-    kernel's measured floor is its per-sub-step chain, and pair updates
-    beat the pure 2× depth bound there (3.41× at B=120 n=6 R=1000,
-    ``out/parity/pair_gibbs_ab_r3.log``), so the regime is issue-latency
-    bound and a deeper joint update can pay despite 4× the per-sub-step
-    element work.  Preserves the Boltzmann distribution (sequential-scan
-    Gibbs on quad blocks).
+    sequential depth per sweep of single-variable sweeps, at 4× the
+    per-sub-step element work.  Preserves the Boltzmann distribution
+    (sequential-scan Gibbs on quad blocks).
 
     Uniform consumption: quad (i..i+3) draws from ``u[i]``; remainder
-    pair (i, i+1) from ``u[i]``; trailing single from ``u[n-1]``.  The
-    Pallas kernel consumes identically and mirrors every float op in the
-    same association order (CI debug tests lock the two bit-for-bit).
-    Grouping is globally consecutive, which equals the kernel's per-block
-    grouping because every quad-capable block size is a multiple of 4.
+    pair (i, i+1) from ``u[i]``; trailing single from ``u[n-1]``.
     """
     n = h.shape[0]
 

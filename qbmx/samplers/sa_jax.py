@@ -1,6 +1,6 @@
 """Batched simulated annealing in pure JAX.
 
-TPU-native replacement for dwave-neal's C++ ``SimulatedAnnealingSampler``
+JAX replacement for dwave-neal's C++ ``SimulatedAnnealingSampler``
 (invoked at ``src/model/faster_dqbm.py:299-313`` and
 ``src/qubo/sampler.py:26-33`` in the reference).  Design per SURVEY.md §7
 "hard parts": single-spin Metropolis is sequential *within* a sweep, so
@@ -34,7 +34,7 @@ def _metropolis_sweep(s, u, beta, h, J):
     Acceptance uses the log-threshold form: ``u < exp(-beta*max(delta,0))``
     is exactly ``delta < -log(u)/beta`` for u in [0,1) and beta > 0, so the
     thresholds are precomputed ONCE per sweep and each variable step costs
-    one compare instead of exp+max+compare.  The Pallas kernel uses the
+    one compare instead of exp+max+compare.  The anneal kernel uses the
     SAME formulation (the CI debug tests lock the two bit-for-bit)."""
     n = h.shape[0]
     thresh = -jnp.log(u) / beta  # (n, R)
@@ -93,7 +93,7 @@ def sa_sample_batch(
 
     The entire batch anneals in one compiled computation — the per-variable
     sequential step becomes a batched matvec over the full (B, R) chain
-    block, which is where the TPU wins over the reference's per-example
+    block, which is where the device wins over the reference's per-example
     process-pool loop (2·N sampler invocations per epoch, SURVEY.md §3.2).
 
     ``key`` may be a single key (split per problem internally) or a (B,)

@@ -14,13 +14,6 @@ import pickle
 from pathlib import Path
 
 import numpy as np
-from sklearn.metrics import (
-    accuracy_score,
-    f1_score,
-    precision_score,
-    recall_score,
-    roc_auc_score,
-)
 
 
 @dataclasses.dataclass
@@ -41,29 +34,79 @@ class History:
     prob_auc_per_epoch: list = dataclasses.field(default_factory=list)
 
 
+def _ratio(num, den):
+    """num/den elementwise, 0 where den == 0 (sklearn's ``zero_division=0``)."""
+    num = np.asarray(num, dtype=np.float64)
+    den = np.asarray(den, dtype=np.float64)
+    return np.divide(num, den, out=np.zeros_like(num), where=den > 0)
+
+
+def precision_recall_f1(y_true, y_pred, average="binary"):
+    """(precision, recall, f1) with ``zero_division=0``.
+
+    ``average="binary"`` scores label 1 as the positive class;
+    ``"macro"`` averages the per-label scores over every label that occurs
+    in ``y_true`` or ``y_pred``.  F1 is ``2·tp / (2·tp + fp + fn)``."""
+    y_true = np.asarray(y_true).ravel()
+    y_pred = np.asarray(y_pred).ravel()
+    labels = [1] if average == "binary" else np.union1d(y_true, y_pred)
+    scores = []
+    for c in labels:
+        tp = np.sum((y_pred == c) & (y_true == c))
+        fp = np.sum((y_pred == c) & (y_true != c))
+        fn = np.sum((y_pred != c) & (y_true == c))
+        scores.append((_ratio(tp, tp + fp), _ratio(tp, tp + fn),
+                       _ratio(2 * tp, 2 * tp + fp + fn)))
+    return tuple(float(np.mean(s)) for s in zip(*scores))
+
+
+def binary_auc(y_true, scores):
+    """ROC-AUC of ``scores`` for the larger of two labels (rank statistic,
+    ties count one half).  Raises ValueError unless ``y_true`` holds exactly
+    two labels."""
+    y_true = np.asarray(y_true).ravel()
+    scores = np.asarray(scores, dtype=np.float64).ravel()
+    labels = np.unique(y_true)
+    if len(labels) != 2:
+        raise ValueError(f"binary AUC needs two labels, got {labels}")
+    pos = y_true == labels[1]
+    _, inv, counts = np.unique(scores, return_inverse=True, return_counts=True)
+    ranks = (np.cumsum(counts) - (counts - 1) / 2.0)[inv]  # average ranks
+    n_pos = pos.sum()
+    n_neg = len(pos) - n_pos
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def ovr_auc(y_true, probs):
+    """Macro one-vs-rest AUC: column c of ``probs`` scores label c.  NaN
+    when a label is missing from ``y_true`` (its AUC is undefined)."""
+    y_true = np.asarray(y_true).ravel()
+    probs = np.asarray(probs, dtype=np.float64)
+    per_class = [binary_auc(y_true == c, probs[:, c])
+                 if 0 < np.sum(y_true == c) < len(y_true) else np.nan
+                 for c in range(probs.shape[1])]
+    return float(np.mean(per_class))
+
+
 def get_metrics(y_true, y_predict, class_titles):
     """acc/f1/precision/recall/auc; binary vs macro by number of classes
     (reference ``get_metrics``, ``src/metrics.py:190-202``; like the
     reference, AUC uses hard predictions and is 0 for multiclass)."""
     y_true = np.asarray(y_true).ravel()
     y_predict = np.asarray(y_predict).ravel()
-    acc = accuracy_score(y_true, y_predict)
+    acc = float(np.mean(y_true == y_predict))
     if len(class_titles) == 2:
-        f1 = f1_score(y_true, y_predict, average="binary", zero_division=0)
-        precision = precision_score(y_true, y_predict, average="binary", zero_division=0)
-        recall = recall_score(y_true, y_predict, average="binary", zero_division=0)
+        precision, recall, f1 = precision_recall_f1(y_true, y_predict, "binary")
         auc = _safe_auc(y_true, y_predict)
     else:
-        f1 = f1_score(y_true, y_predict, average="macro", zero_division=0)
-        precision = precision_score(y_true, y_predict, average="macro", zero_division=0)
-        recall = recall_score(y_true, y_predict, average="macro", zero_division=0)
+        precision, recall, f1 = precision_recall_f1(y_true, y_predict, "macro")
         auc = 0.0
     return acc, f1, precision, recall, auc
 
 
 def _safe_auc(y_true, scores):
     try:
-        return float(roc_auc_score(y_true, scores))
+        return binary_auc(y_true, scores)
     except ValueError:  # single-class y_true
         return 0.0
 
@@ -75,18 +118,20 @@ def prob_scored_auc(y_true, probs):
     (``src/metrics.py:196`` — for binary labels that equals balanced
     accuracy); probability scoring is the standard ROC protocol and
     strictly more informative.  ``probs``: (B, C) class probabilities —
-    binary uses column 1, multiclass macro one-vs-rest (where the
-    reference pins AUC to 0, ``src/metrics.py:201``).
+    binary uses column 1, multiclass macro one-vs-rest over rows
+    normalised to sum to 1 (where the reference pins AUC to 0,
+    ``src/metrics.py:201``).  0 when ``y_true`` lacks a class.
     """
     y_true = np.asarray(y_true).ravel()
     p = np.asarray(probs, dtype=np.float64)
     try:
         if p.shape[1] == 2:
-            out = roc_auc_score(y_true, p[:, 1])
+            out = binary_auc(y_true, p[:, 1])
         else:
-            # sklearn's multiclass path requires rows summing to 1
+            if len(np.unique(y_true)) != p.shape[1]:
+                raise ValueError("y_true lacks a class")
             p = p / np.clip(p.sum(axis=1, keepdims=True), 1e-12, None)
-            out = roc_auc_score(y_true, p, multi_class="ovr", average="macro")
+            out = ovr_auc(y_true, p)
         return float(out) if np.isfinite(out) else 0.0
     except ValueError:  # single-class y_true / missing classes in y_true
         return 0.0
@@ -97,7 +142,7 @@ def accuracy_and_auc(y_true, y_pred):
     (``src/ClassificationRBM.py:251-294``)."""
     y_true = np.asarray(y_true).ravel()
     y_pred = np.asarray(y_pred).ravel()
-    return float(accuracy_score(y_true, y_pred)), _safe_auc(y_true, y_pred)
+    return float(np.mean(y_true == y_pred)), _safe_auc(y_true, y_pred)
 
 
 def get_result_as_txt(

@@ -54,106 +54,3 @@ def visualize_architecture(model, save_path: str | None = None):
     if save_path:
         fig.savefig(save_path, bbox_inches="tight")
     return fig
-
-
-def plot_pack_layout(n: int, batch: int | None = None, reads: int | None = None,
-                     save_path: str | None = None):
-    """Visualize the Pallas kernel's problem-packing decision for a QUBO
-    shape — the TPU analog of the reference's Pegasus subgraph plot
-    (``plot_subgraphs``, ``src/embedding.py:227-248``): where the reference
-    colored which chip region each replicated QUBO embeds into, this colors
-    which rows/couplings of the (N, N) VMEM tile each packed problem owns
-    under the interleaved step-major layout (row ``i*P + p`` = variable
-    ``i`` of problem ``p`` — ``qbmx.samplers.sa_pallas.pack_geometry``).
-
-    Returns the figure; annotates stride/P/N, pack count, strategy
-    (masked full-tile vs block-sweep) and the tile's VMEM footprint.
-    """
-    from qbmx.samplers.sa_pallas import _round_up, block_vars, pack_geometry
-
-    stride, P, N = pack_geometry(n, batch=batch, reads=reads)
-    R = _round_up(reads if reads else 128, 128)
-    B = batch if batch is not None else 64
-    G = -(-max(B, 1) // P)
-    use_mask = stride <= 16 and R <= 128
-
-    # owner map: -1 padding, p for rows of problem p (bias row included)
-    owner = np.full(N, -1, dtype=int)
-    for r in range(P * stride):
-        if r // P <= n:  # variable or bias row; rows past n+1 are padding
-            owner[r] = r % P
-    img = np.full((N, N), np.nan)
-    occupied = owner >= 0
-    for r1 in range(N):
-        if owner[r1] < 0:
-            continue
-        same = occupied & (owner == owner[r1])
-        img[r1, same] = owner[r1]
-
-    fig, ax = plt.subplots(figsize=(7, 7))
-    cmap = plt.get_cmap("tab20", max(P, 1))
-    cmap.set_bad("#eeeeee")
-    ax.imshow(np.ma.masked_invalid(img), cmap=cmap, interpolation="nearest")
-    vmem_mb = 4 * (N * N + 2 * N * R) / 2**20
-    strat = ("masked full-tile" if use_mask
-             else f"block-sweep (K={block_vars(P)})")
-    ax.set_title(
-        f"pack_geometry(n={n}, batch={B}, reads={reads or 128}):\n"
-        f"{P} problems/pack (stride {stride}) in a {N}×{N} tile, "
-        f"{G} pack{'s' if G != 1 else ''}, {strat}, ~{vmem_mb:.1f} MB VMEM",
-        fontsize=10,
-    )
-    ax.set_xlabel("coupling column (interleaved rows: i·P + p)")
-    ax.set_ylabel("coupling row")
-    if save_path:
-        fig.savefig(save_path, bbox_inches="tight", dpi=120)
-    return fig
-
-
-def plot_lane_layout(n: int, num_problems: int, num_reads: int,
-                     groups: int = 1, save_path: str | None = None):
-    """Visualize the lane kernel's geometry decision for a shared-coupling
-    shape (companion to :func:`plot_pack_layout` for the round-3 lane
-    kernel, ``qbmx.samplers.sa_lane.lane_geometry``): the folded state
-    tile (fold·n_pad rows × Lw lanes) with each variable's row slab
-    colored, plus the chunk count and the J⊗I_fold VMEM footprint.
-
-    ``groups`` must match the group count the actual call will use: any
-    G > 1 grid double-buffers its blocks under the 16 MiB scoped-VMEM
-    limit, which can shrink the geometry vs the single-program budget
-    (ADVICE r4 — omitting it here showed layouts the kernel won't run).
-
-    Returns the figure (None geometry → raises like the kernel would).
-    """
-    from qbmx.samplers.sa_lane import KVARS, lane_geometry
-
-    n_pad, Lc, C, fold = lane_geometry(n, num_problems, num_reads,
-                                       groups=groups)
-    if Lc == 0:
-        raise ValueError(f"lane kernel declines n={n} (J tile beyond VMEM)")
-    rows = n_pad * fold
-    Lw = Lc // fold
-    img = np.full((rows, min(Lw, 512)), np.nan)
-    for i in range(n_pad):
-        val = i if i < n else np.nan  # padding variables stay grey
-        img[i * fold : (i + 1) * fold, :] = val
-
-    fig, ax = plt.subplots(figsize=(7, 5))
-    cmap = plt.get_cmap("tab20", max(n, 1))
-    cmap.set_bad("#eeeeee")
-    ax.imshow(np.ma.masked_invalid(img), cmap=cmap, interpolation="nearest",
-              aspect="auto")
-    j_mb = 4 * (fold * n_pad) ** 2 / 2**20
-    state_mb = 4 * rows * Lw / 2**20
-    ax.set_title(
-        f"lane_geometry(n={n}, B={num_problems}, R={num_reads}, G={groups}):\n"
-        f"fold {fold} → {rows}×{Lw} state tile per chunk, {C} chunk"
-        f"{'s' if C != 1 else ''} (Lc={Lc} lanes), blocks of {KVARS} vars, "
-        f"J⊗I{fold} {j_mb:.1f} MB + state {state_mb:.1f} MB VMEM",
-        fontsize=10,
-    )
-    ax.set_xlabel(f"folded lane (Lw={Lw}; showing ≤512)")
-    ax.set_ylabel("state row (variable-major, fold-minor)")
-    if save_path:
-        fig.savefig(save_path, bbox_inches="tight", dpi=120)
-    return fig

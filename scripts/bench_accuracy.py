@@ -12,7 +12,7 @@ BASELINE.json's bar is "accuracy within 1% of reference runs"; the
 reference's own runs on this task family are effectively ceiling-accuracy
 (MNIST 0-vs-1 is near-separable), so the bar is acc ≥ 0.99 · reference.
 
-Usage: python scripts/bench_accuracy.py          (TPU)
+Usage: python scripts/bench_accuracy.py
 Writes: out/parity/bench_accuracy.json
 """
 
@@ -82,12 +82,12 @@ def main():
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         bench.main()
-    tput = json.loads(buf.getvalue().strip().splitlines()[-1])
+    throughput_row = json.loads(buf.getvalue().strip().splitlines()[-1])
 
     out = {
         "config": {"num_hidden": 128, "data": "binarized MNIST 0/1 "
                    "(bench.load_images pipeline)", "cd_k": 1},
-        "throughput": tput,
+        "throughput": throughput_row,
         "test_accuracy_cd1": round(acc_cd1, 4),
         "test_accuracy_cd1_bf16": round(acc_cd1_bf16, 4),
         "test_accuracy_exact_discriminative": round(acc_exact, 4),

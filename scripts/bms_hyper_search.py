@@ -15,8 +15,8 @@ Stages (pass --stage):
 
 Every config appends one JSON line to out/parity/bms_hyper_search.jsonl
 (so interrupted runs lose nothing) and the log prints the running best
-single run.  Compile note: each distinct (h, solver-shape) pays a remote
-AOT compile; lr sweeps reuse the cache (lr is a traced scalar).
+single run.  Compile note: each distinct (h, solver-shape) pays a
+compile; lr sweeps reuse the cache (lr is a traced scalar).
 """
 
 from __future__ import annotations

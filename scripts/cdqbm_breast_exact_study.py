@@ -25,23 +25,18 @@ Reference relation: the reference publishes no CDQBM numbers on any dataset
 results (``src/qbm_main.py``); this study is the push-beyond evidence for
 which family fits noisy MedMNIST tasks.
 
-Usage:  QBMX_PLATFORM=cpu python scripts/cdqbm_breast_exact_study.py
+Usage:  JAX_PLATFORMS=cpu python scripts/cdqbm_breast_exact_study.py
 Writes: out/parity/cdqbm_breast_exact_study.md
 """
 
 from __future__ import annotations
 
-import os
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-
-if os.environ.get("QBMX_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 import optax

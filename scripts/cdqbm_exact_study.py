@@ -24,24 +24,18 @@ Also reports the input-sensitivity of the pooled conv biases (std across
 the dataset, averaged over windows): the mechanism by which argmin pooling
 on non-negative fmaps erases input information.
 
-Usage:  QBMX_PLATFORM=cpu python scripts/cdqbm_exact_study.py
+Usage:  JAX_PLATFORMS=cpu python scripts/cdqbm_exact_study.py
 Writes: out/parity/cdqbm_exact_study.md
 """
 
 from __future__ import annotations
 
-import os
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-if os.environ.get("QBMX_PLATFORM", "cpu") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-else:  # pragma: no cover
-    import jax
+import jax
 
 import dataclasses
 

@@ -18,14 +18,13 @@ variables) — Adam, no sampling noise.  Channels are compared BOTH ways:
 
 Flat Disc_QBM rows (h=5 / h=10) anchor the family comparison.
 
-Usage:  QBMX_PLATFORM=cpu python scripts/cdqbm_multikernel_study.py
-        (or on the TPU — pure jitted enumeration math)
+Usage:  JAX_PLATFORMS=cpu python scripts/cdqbm_multikernel_study.py
+        (or on a GPU — pure jitted enumeration math)
 Writes: out/parity/cdqbm_multikernel_study.md
 """
 
 from __future__ import annotations
 
-import os
 import sys
 import time
 from pathlib import Path
@@ -33,10 +32,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-
-if os.environ.get("QBMX_PLATFORM", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 import optax

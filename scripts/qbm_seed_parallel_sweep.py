@@ -4,12 +4,12 @@ Defaults reproduce the breastmnist parity sweep configuration
 (``out/parity/qbm_sa_sweep_r2.log``: h5, sc1000, 1000 sweeps, bs60,
 lr0.307, e20, the reference's 10 seeds) trained via
 ``qbmx.train.sweep.SeedParallelDQBM``: all 10 models' QUBOs build under one
-vmap and anneal in one packed sampler batch per step, so the whole sweep
+vmap and anneal in one sampler batch per step, so the whole sweep
 pays ONE set of epoch dispatches instead of ten.  ``--data_set
 pneumoniamnist --hnodes 2 --batch_size 73 --lr 0.4529451796571889``
 reproduces the pneumonia config the reference ran on a D-Wave QPU.
 
-Usage: python scripts/qbm_seed_parallel_sweep.py   (TPU)
+Usage: python scripts/qbm_seed_parallel_sweep.py
 Writes: stdout (tee to out/parity/...) — compare mean±std vs PARITY.md §1.
 
 The same sweep is CLI-reachable as ``qbm_main --seed_sweep <seeds...>``

@@ -182,7 +182,7 @@ class TestQuboAssembly:
     def test_structured_builders_match_dense(self):
         """shared + diag(fields) must equal the dense per-example builders
         EXACTLY for every pooling mode — the contract the sampler group
-        path (sampler_sample_groups / sa_lane) relies on."""
+        path (sampler_sample_groups / anneal_kernel) relies on."""
         rng = np.random.default_rng(9)
         for pooling, bias, lp in [("deterministic", "shared", False),
                                   ("probabilistic", "per-unit", False),

@@ -355,11 +355,15 @@ class TestReviewRegressions:
         assert set(np.unique(ty)) == {0, 1, 2}
 
     def test_sa_pallas_forced(self):
+        """"SA" routes by shape and device, "SA-JAX" pins XLA; the old
+        kernel-forcing name is gone."""
         from qbmx.samplers.api import get_sampler
 
-        assert get_sampler("SA-PALLAS").use_pallas is True
         assert get_sampler("SA-JAX").use_pallas is False
         assert get_sampler("SA").use_pallas is None
+        assert get_sampler("SA", use_pallas=True).use_pallas is True
+        with pytest.raises(ValueError, match="Unknown solver"):
+            get_sampler("SA-" + "PALLAS")
 
     def test_bms_beta_forwarded(self):
         from qbmx.samplers.api import get_sampler

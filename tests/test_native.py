@@ -91,8 +91,8 @@ class TestNativeSA:
 class TestPerProblemStreams:
     """r5 (VERDICT r4 Weak #4): with a (B,) key array the native route has
     TRUE per-problem streams — problem b's samples are a pure function of
-    key[b] (the C++ seeds entry), unlike the packed TPU kernel (all-keys
-    mix) and the lane kernel (per-group)."""
+    key[b] (the C++ seeds entry), like the XLA samplers and the anneal
+    kernel."""
 
     def test_key_isolation_and_single_problem_reproduction(self):
         from qbmx.samplers.api import get_sampler

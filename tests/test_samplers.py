@@ -178,41 +178,212 @@ class TestGibbs:
         assert out.shape == (2, 32, 4)
 
 
-class TestPallasRouting:
-    """Pack geometry + auto-routing. The kernel itself needs TPU hardware
-    (on-chip PRNG has no interpreter support); its statistics are validated
-    on-device by scripts/validate_pallas_tpu.py — measured on v5e: mean
-    marginal gap vs the XLA sampler 0.008 over 60 random 6-var problems."""
+def _dense_trajectory(sweep_fn, Q, init01, uniforms, hot, cold):
+    """The anneal with an XLA sweep function and the geometric schedule
+    (hot, cold) per problem: the reference the kernel is locked to."""
+    S = uniforms.shape[0]
+    out = []
+    for b in range(Q.shape[0]):
+        h, J = split_qubo(Q[b])
+        betas = geometric_beta_schedule(hot[b], cold[b], S)
+        s = jnp.asarray(init01[b], jnp.float32)
+        for t in range(S):
+            s = sweep_fn(s, uniforms[t, b], betas[t], h, J)
+        out.append(np.asarray(s))
+    return np.stack(out)
 
-    def test_pack_geometry(self):
-        """Measured routing rules (sa_pallas routing constants): P grows
-        with the batch until the per-substep MXU work knee (~26M flops) or
-        VMEM; P is capped at the batch's next power of two."""
-        from qbmx.samplers.sa_pallas import pack_geometry
 
-        assert pack_geometry(5) == (8, 16, 128)   # 16 flat-QBM problems/tile
-        # the n=41 CDQBM shape: R=128 packs 64 problems, R=1024 backs off
-        assert pack_geometry(41, batch=60, reads=100) == (48, 64, 3072)
-        assert pack_geometry(41, batch=60, reads=1000) == (48, 16, 768)
-        # small stride at many reads leaves the mask path, packs 32
-        assert pack_geometry(6, batch=120, reads=1000)[1] == 32
-        # batch cap: 8 problems never pack more than 8 per tile
-        assert pack_geometry(130, batch=8, reads=100)[1] == 8
-        # single problem → P=1
-        assert pack_geometry(300, batch=1)[1] == 1
+def _dense_problem(rng, B, n, reads, sweeps):
+    Q = np.triu(rng.uniform(-2, 2, (B, n, n)).astype(np.float32))
+    init01 = (rng.uniform(0, 1, (B, reads, n)) < 0.5).astype(np.float32)
+    uniforms = rng.uniform(0, 1, (sweeps, B, n, reads)).astype(np.float32)
+    return jnp.asarray(Q), jnp.asarray(init01), jnp.asarray(uniforms)
 
-    def test_vmem_budget_routing(self):
-        """Auto-routing: the chosen geometry's couplings+state+uniforms must
-        fit the VMEM budget; beyond that the XLA sampler takes over."""
-        from qbmx.samplers.sa_pallas import _VMEM_BUDGET, pack_geometry
 
-        assert pack_geometry(6)[1] >= 8      # packed
-        for n, batch, reads, fits in [(6, 60, 128, True), (717, 8, 128, True),
-                                      (4000, 8, 128, False)]:
-            stride, P, N = pack_geometry(n, batch=batch, reads=reads)
-            R = -(-reads // 128) * 128
-            vmem = 4 * (N * N + 2 * N * R)
-            assert (vmem <= _VMEM_BUDGET) == fits, n
+def _kernel_dense(Q, init01, uniforms, num_reads, **kw):
+    """A dense batch through the anneal kernel (interpret mode), one group
+    per problem — the layout SASampler/GibbsSampler.sample_batch use."""
+    from qbmx.samplers.anneal_kernel import anneal_groups
+
+    B, n = Q.shape[0], Q.shape[-1]
+    out = anneal_groups(
+        jax.random.key(0), Q, jnp.zeros((B, 1, n)), num_reads,
+        uniforms.shape[0], interpret=True,
+        debug_randoms=(init01[:, None], uniforms[:, :, None]), **kw)
+    return np.asarray(out[:, 0])
+
+
+KERNEL_SHAPES = [
+    (5, 3, 16, 8),
+    (14, 2, 8, 6),
+    (20, 4, 8, 4),
+    (41, 1, 4, 3),   # the CDQBM shape class (looped variable loop)
+    (6, 2, 8, 1),    # a single sweep runs at the cold end
+]
+
+
+class TestKernelDenseBatches:
+    """Dense batches through the anneal kernel (interpret mode, host
+    variates) against the XLA sweeps, bit-for-bit."""
+
+    @pytest.mark.parametrize("n,B,reads,sweeps", KERNEL_SHAPES)
+    def test_metropolis_matches_sa_jax(self, n, B, reads, sweeps):
+        from qbmx.samplers.sa_jax import _metropolis_sweep
+
+        rng = np.random.default_rng(n * 1000 + B)
+        Q, init01, uniforms = _dense_problem(rng, B, n, reads, sweeps)
+        got = _kernel_dense(Q, init01, uniforms, reads)
+        hot, cold = default_beta_range(Q)
+        want = _dense_trajectory(_metropolis_sweep, Q, init01, uniforms,
+                                 hot, cold)
+        assert got.shape == (B, reads, n)
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("n,B,reads,sweeps", KERNEL_SHAPES)
+    def test_heatbath_matches_gibbs(self, n, B, reads, sweeps):
+        """Heat-bath warmup ramp min(default_hot, beta) → beta, as
+        gibbs_sample runs it."""
+        from qbmx.samplers.gibbs import _heat_bath_sweep
+
+        rng = np.random.default_rng(n * 1000 + B + 7)
+        Q, init01, uniforms = _dense_problem(rng, B, n, reads, sweeps)
+        got = _kernel_dense(Q, init01, uniforms, reads, rule="heatbath",
+                            beta_cold=jnp.ones((B, 1)))
+        hot, _ = default_beta_range(Q)
+        want = _dense_trajectory(_heat_bath_sweep, Q, init01, uniforms,
+                                 jnp.minimum(hot, 1.0), jnp.ones(B))
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("n,B,reads,sweeps",
+                             [(20, 4, 8, 4), (41, 1, 4, 3), (5, 3, 8, 6)])
+    def test_pair_gibbs_matches_mirror(self, n, B, reads, sweeps):
+        from qbmx.samplers.gibbs import _pair_heat_bath_sweep
+
+        rng = np.random.default_rng(n * 37 + B)
+        Q, init01, uniforms = _dense_problem(rng, B, n, reads, sweeps)
+        got = _kernel_dense(Q, init01, uniforms, reads, rule="heatbath",
+                            pair=True, beta_cold=jnp.ones((B, 1)))
+        hot, _ = default_beta_range(Q)
+        want = _dense_trajectory(_pair_heat_bath_sweep, Q, init01, uniforms,
+                                 jnp.minimum(hot, 1.0), jnp.ones(B))
+        np.testing.assert_array_equal(got, want)
+
+    def test_sampler_streams_are_per_problem(self, monkeypatch):
+        """SASampler on the kernel route: one key per problem, so a
+        problem's samples do not depend on the rest of the batch."""
+        import functools
+
+        import qbmx.samplers.anneal_kernel as ak
+        from qbmx.samplers.api import SASampler
+
+        monkeypatch.setattr(ak, "anneal_groups",
+                            functools.partial(ak.anneal_groups, interpret=True))
+        rng = np.random.default_rng(1)
+        Q = jnp.stack([random_qubo(rng, 5) for _ in range(3)])
+        keys = jax.random.split(jax.random.key(0), 3)
+        s = SASampler(num_sweeps=4, use_pallas=True)
+        full = np.asarray(s.sample_batch(keys, Q, 32))
+        part = np.asarray(s.sample_batch(keys[1:], Q[1:], 32))
+        np.testing.assert_array_equal(full[1:], part)
+
+
+class TestRouting:
+    def test_samplers_follow_kernel_route(self, monkeypatch):
+        """SA and BMS take the kernel exactly where kernel_route says; PT
+        always runs the XLA ladder."""
+        import qbmx.samplers.anneal_kernel as ak
+        from qbmx.samplers import api, gibbs, sa_jax, tempering
+
+        seen = []
+        monkeypatch.setattr(ak, "anneal_groups", lambda key, Qs, h, R, S, **kw: (
+            seen.append("kernel") or jnp.zeros(h.shape[:2] + (R, Qs.shape[-1]))))
+        for mod, name in [(sa_jax, "sa_sample_batch"),
+                          (gibbs, "gibbs_sample_batch"),
+                          (tempering, "pt_sample_batch")]:
+            monkeypatch.setattr(mod, name, lambda key, Q, R, *a, **kw: (
+                seen.append("xla") or jnp.zeros((Q.shape[0], R, Q.shape[-1]))))
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        for n, want in [(6, "kernel"), (41, "kernel"), (65, "xla"), (717, "xla")]:
+            for s in [api.SASampler(num_sweeps=2), api.GibbsSampler(num_warmup=2)]:
+                seen.clear()
+                Q = jnp.zeros((2, n, n))
+                assert s.sample_batch(jax.random.key(0), Q, 4).shape == (2, 4, n)
+                assert seen == [want], (s, n, seen)
+            seen.clear()
+            api.PTSampler(num_sweeps=2).sample_batch(jax.random.key(0),
+                                                     jnp.zeros((2, n, n)), 4)
+            assert seen == ["xla"]
+
+    def test_every_builtin_sampler_scans(self):
+        """No built-in jit-safe sampler declines lax.scan (the kernel lives
+        inside scan like the XLA samplers), at any shape."""
+        from qbmx.samplers.api import (
+            ExactSampler,
+            GibbsSampler,
+            PTSampler,
+            SASampler,
+            sampler_scan_safe,
+            sampler_scan_safe_groups,
+        )
+
+        for s in [SASampler(), SASampler(use_pallas=True), GibbsSampler(),
+                  PTSampler(num_replicas=8), ExactSampler()]:
+            for n, B, R, G in [(6, 60, 1000, 20), (41, 60, 100, 2),
+                               (717, 200, 100, 2)]:
+                assert sampler_scan_safe(s, n, R)
+                assert sampler_scan_safe_groups(s, n, B, R, groups=G)
+
+    def test_quad_flag_routes(self, monkeypatch):
+        """GibbsSampler(quad_updates=True) passes quad to the XLA route;
+        the default keeps single-variable sweeps there."""
+        from qbmx.samplers import api
+
+        seen = {}
+
+        def spy_xla(key, Q, num_reads, num_warmup=32, beta=1.0, pair=False,
+                    quad=False):
+            seen["xla"] = (pair, quad)
+            return jnp.zeros((Q.shape[0], num_reads, Q.shape[-1]), jnp.float32)
+
+        monkeypatch.setattr(api._gibbs, "gibbs_sample_batch", spy_xla)
+        Q = jnp.zeros((2, 6, 6), jnp.float32)
+        api.GibbsSampler(num_warmup=4, quad_updates=True).sample_batch(
+            jax.random.key(0), Q, 8)
+        assert seen["xla"] == (False, True)
+        api.GibbsSampler(num_warmup=4).sample_batch(jax.random.key(0), Q, 8)
+        assert seen["xla"] == (False, False)
+        api.GibbsSampler(num_warmup=4, pair_updates=True).sample_batch(
+            jax.random.key(0), Q, 8)
+        assert seen["xla"] == (True, False)
+
+
+class TestJointGibbsXLA:
+    def test_pair_gibbs_statistics_match_oracle(self):
+        """Pair-Gibbs preserves the Boltzmann distribution: XLA path vs the
+        exact oracle at beta=1."""
+        rng = np.random.default_rng(11)
+        n = 6
+        Q = jnp.asarray(np.triu(rng.uniform(-1, 1, (n, n))), jnp.float32)
+        _, _, marg, pair_m = exact_boltzmann(Q, beta=1.0)
+        s = gibbs_sample(jax.random.key(4), Q, 2048, num_warmup=64, beta=1.0,
+                         pair=True)
+        assert np.allclose(np.asarray(s).mean(axis=0), np.asarray(marg), atol=0.05)
+        emp = np.einsum("mi,mj->ij", np.asarray(s), np.asarray(s)) / s.shape[0]
+        assert np.allclose(emp, np.asarray(pair_m), atol=0.07)
+
+    @pytest.mark.parametrize("n", [4, 5, 6, 7, 10])
+    def test_quad_gibbs_statistics_match_oracle(self, n):
+        """Quad-Gibbs preserves the Boltzmann distribution at every
+        remainder (n % 4 = 0: quads only; 1: trailing single; 2: remainder
+        pair; 3: pair + single): marginals AND pair moments."""
+        rng = np.random.default_rng(11 + n)
+        Q = jnp.asarray(np.triu(rng.uniform(-1, 1, (n, n))), jnp.float32)
+        _, _, marg, pair_m = exact_boltzmann(Q, beta=1.0)
+        s = gibbs_sample(jax.random.key(4), Q, 2048, num_warmup=64, beta=1.0,
+                         quad=True)
+        assert np.allclose(np.asarray(s).mean(axis=0), np.asarray(marg), atol=0.05)
+        emp = np.einsum("mi,mj->ij", np.asarray(s), np.asarray(s)) / s.shape[0]
+        assert np.allclose(emp, np.asarray(pair_m), atol=0.07)
 
 
 class TestParallelTempering:
@@ -252,6 +423,28 @@ class TestParallelTempering:
         err_pt = np.abs(np.asarray(s_pt.mean(axis=0)) - np.asarray(marg)).max()
         err_gb = np.abs(np.asarray(s_gb.mean(axis=0)) - np.asarray(marg)).max()
         assert err_pt < max(err_gb + 0.02, 0.1)
+
+    @pytest.mark.parametrize("M", [2, 4, 8])
+    def test_ladders_match_oracle(self, M):
+        """The XLA ladder at several rung counts tracks the exact marginals
+        at the target beta."""
+        from qbmx.samplers.tempering import pt_sample
+
+        rng = np.random.default_rng(3)
+        n = 5
+        Q = jnp.asarray(np.triu(rng.uniform(-1.5, 1.5, (n, n))), jnp.float32)
+        s = pt_sample(jax.random.key(M), Q, 1024, num_sweeps=32, num_replicas=M)
+        _, _, marg, _ = exact_boltzmann(Q, beta=1.0)
+        assert np.allclose(np.asarray(s).mean(axis=0), np.asarray(marg), atol=0.08)
+
+    def test_batch_keys_are_per_problem(self, rng):
+        from qbmx.samplers.tempering import pt_sample_batch
+
+        Qs = jnp.stack([random_qubo(rng, 4) for _ in range(3)])
+        keys = jax.random.split(jax.random.key(5), 3)
+        full = np.asarray(pt_sample_batch(keys, Qs, 32, 4, 4, 1.0))
+        part = np.asarray(pt_sample_batch(keys[1:], Qs[1:], 32, 4, 4, 1.0))
+        np.testing.assert_array_equal(full[1:], part)
 
     def test_batch_shape(self, rng):
         from qbmx.samplers.tempering import pt_sample_batch

@@ -406,8 +406,8 @@ def test_reinit_repeats_with_fresh_attempts(rng):
 def test_scan_epoch_matches_unrolled_exactly():
     """_scan_epoch is the lax.scan twin of _unrolled_epoch (identical key
     consumption): same params, keys, and data must produce bit-identical
-    parameters and nlls — the contract that lets TPU lane-routed sweeps
-    switch to the scanned whole-epoch program."""
+    parameters and nlls — the contract that lets sweeps switch between the
+    scanned and the unrolled whole-epoch program."""
     import jax
     import jax.numpy as jnp
 

@@ -112,9 +112,11 @@ class TestScanGating:
         assert m.supports_epoch_scan()
 
     def test_forced_pallas_disables_scan(self):
+        """The forced kernel route keeps the scanned epoch: the Pallas
+        anneal kernel lives inside lax.scan."""
         m = DiscQBM(dim_input=3, n_hidden_nodes=2, seed=0, sample_count=8,
                     sampler=SASampler(num_sweeps=8, use_pallas=True))
-        assert not m.supports_epoch_scan()
+        assert m.supports_epoch_scan() and m.supports_epoch_scan(6)
 
     def test_scan_and_loop_agree_statistically(self):
         """Same data, same sampler type: scanned-epoch and per-batch paths
